@@ -1,12 +1,11 @@
 // Native BVH builder: binned-SAH, flat skip-link output.
 //
 // The reference builds its BVH in C++ on the host (SURVEY.md §2.1 R6); this
-// is the TPU framework's native equivalent for large scenes (the 2M-triangle
+// is the framework's native equivalent for large scenes (the 2M-triangle
 // config 5, BASELINE.json:11), where the pure-numpy median-split builder in
 // accel/build.py is too slow. Output layout is IDENTICAL to the numpy
 // builder's contract (depth-first preorder, skip links, leaf-contiguous
-// triangle order) so accel/traverse.py and ops/traverse_pallas.py consume
-// either interchangeably; quality is higher (SAH) which also shortens
+// triangle order) so accel/traverse.py consumes either interchangeably; quality is higher (SAH) which also shortens
 // traversal.
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this environment):

@@ -1,4 +1,4 @@
-"""Generate the committed mesh asset(s) (VERDICT.md round-1 item 8).
+"""Generate the committed mesh asset(s).
 
 The reference ships the Stanford bunny OBJ (SURVEY.md §2.1 R8); this
 environment has no network, so the committed `assets/bunny.obj` is the
@@ -24,8 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from pathtracer_tpu.scene.builder import procedural_bunny
-from pathtracer_tpu.scene.obj import load_obj
+from pathtracer.scene.builder import procedural_bunny
+from pathtracer.scene.obj import load_obj
 
 
 def write_obj(path: str, tri: np.ndarray) -> None:

@@ -21,11 +21,11 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from pathtracer_tpu.accel.build import with_bvh  # noqa: E402
-from pathtracer_tpu.config import RenderConfig  # noqa: E402
-from pathtracer_tpu.engine import wavefront  # noqa: E402
-from pathtracer_tpu.io.framebuffer import write_png  # noqa: E402
-from pathtracer_tpu.scene import builder  # noqa: E402
+from pathtracer.accel.build import with_bvh  # noqa: E402
+from pathtracer.config import RenderConfig  # noqa: E402
+from pathtracer.engine import wavefront  # noqa: E402
+from pathtracer.io.framebuffer import write_png  # noqa: E402
+from pathtracer.scene import builder  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "golden")

@@ -1,17 +1,17 @@
-"""Multi-host scaling benchmark — the config-5 pod entry (SURVEY.md §3.5).
+"""Multi-device / multi-host scaling benchmark — the config-5 entry
+(SURVEY.md §3.5; BASELINE.json:11: "2M-triangle scene, tiles+rays
+sharded, grads allreduced").
 
-Run ONE copy of this script per host of a TPU pod slice (BASELINE.json:11:
-"2M-triangle scene, tiles+rays sharded across v4-16, grads allreduced over
-ICI"). Each host joins the jax.distributed process group, the image's
-pixel space is sharded over every chip of the slice via shard_map
-(parallel/mesh.py), and host 0 reports rays/s/chip plus the scaling
-efficiency against a supplied single-chip reference:
+The image's pixel space is sharded over every device via shard_map
+(parallel/mesh.py), and process 0 reports rays/s per device plus the
+scaling efficiency against a supplied single-device reference:
 
-    # on a real pod (per host; TPU pods auto-detect coordinator/topology):
+    # one host, all its GPUs:
     python scripts/scaling_pod.py --scene big_mesh --grad \
-        --single-chip-ref 1058325
+        --single-chip-ref <rays/s of one GPU>
 
-    # explicit process-group flags (non-TPU or manual setups):
+    # several hosts: one copy per host, with explicit process-group flags
+    # (jax.distributed needs the coordinator, count and id):
     python scripts/scaling_pod.py --coordinator host0:8476 \
         --num-processes 2 --process-id $ID ...
 
@@ -19,12 +19,9 @@ efficiency against a supplied single-chip reference:
     python scripts/scaling_pod.py --cpu-virtual 8 --scene cornell_spheres \
         --width 64 --height 64 --budget 5
 
-This environment exposes exactly one chip, so the ≥80%-at-2-hosts target
-(BASELINE.json:5) cannot be wall-clock-measured here — the sharding maths
-is validated bit-exactly in tests/dist/ instead, and this script is the
-ready-to-run measurement for when a slice exists. Determinism contract:
-sampling keys off absolute pixel ids, so the sharded render equals the
-single-device render bit-for-bit at fixed seeds regardless of N.
+Determinism contract: sampling keys off absolute pixel ids, so the
+sharded render equals the single-device render bit-for-bit at fixed
+seeds regardless of N (tests/dist/).
 """
 
 from __future__ import annotations
@@ -50,8 +47,8 @@ def main() -> int:
                     help="time sharded train steps (fwd+bwd+psum+update) "
                     "instead of forward renders")
     ap.add_argument("--single-chip-ref", type=float, default=None,
-                    help="single-chip rays/s to compute scaling_eff "
-                    "against (e.g. the BASELINE.md median)")
+                    help="single-device rays/s to compute scaling_eff "
+                    "against (bench.py on one GPU)")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -73,28 +70,25 @@ def main() -> int:
     if args.cpu_virtual:
         jax.config.update("jax_platforms", "cpu")
 
-    from pathtracer_tpu.utils.cache import enable as enable_cache
+    from pathtracer.utils.cache import enable as enable_cache
 
     enable_cache()
 
     import numpy as np
 
-    from pathtracer_tpu.accel.auto import prepare_accel
-    from pathtracer_tpu.accel.build import with_bvh
-    from pathtracer_tpu.config import PRESETS
-    from pathtracer_tpu.parallel import mesh as pmesh
-    from pathtracer_tpu.scene.builder import build_scene
-    from pathtracer_tpu.scene.model import scene_to_device
-    from pathtracer_tpu.utils.logging import log, log_json
+    from pathtracer.accel.auto import prepare_accel
+    from pathtracer.accel.build import with_bvh
+    from pathtracer.config import PRESETS
+    from pathtracer.parallel import mesh as pmesh
+    from pathtracer.scene.builder import build_scene
+    from pathtracer.scene.model import scene_to_device
+    from pathtracer.utils.logging import log
 
-    # Join the pod's process group BEFORE any jax computation. On real
-    # TPU pods initialize() auto-detects coordinator and topology when
-    # no flags are given; single host / smoke mode skips it.
+    # Join the process group BEFORE any jax computation; single host /
+    # smoke mode skips it.
     if args.num_processes and args.num_processes > 1:
         pmesh.initialize_distributed(args.coordinator, args.num_processes,
                                      args.process_id)
-    elif not args.cpu_virtual and "TPU_WORKER_HOSTNAMES" in os.environ:
-        jax.distributed.initialize()
 
     n_chips = jax.device_count()
     n_hosts = jax.process_count()
@@ -138,14 +132,8 @@ def main() -> int:
             chips=n_chips, hosts=n_hosts, scene=cfg.scene,
             backend=cfg.backend, grad=args.grad)
 
-    # Useful-ray estimate per frame: measured once via the instrumented
-    # engine on a small probe is overkill here — frames are identical,
-    # so report PIXEL-PATHS/s plus rays/s using the engine's counted
-    # rays for one frame on this config (cheap: one extra render on
-    # shard 0's numbers is not needed; we count via trace_sample stats
-    # only when affordable). For the standard bench configs the
-    # BASELINE.md methodology already defines rays/frame; to stay
-    # self-contained we time frames and report frames/s * rays_hint.
+    # Frames are identical, so time whole frames and multiply by the
+    # engine's exact useful-ray count of one frame (counted below).
     samples = []
     deadline = time.perf_counter() + args.budget
     while not samples or time.perf_counter() < deadline:
@@ -154,18 +142,15 @@ def main() -> int:
         samples.append(time.perf_counter() - t0)
         if len(samples) >= 10_000:
             break
-    med = sorted(samples)[len(samples) // 2]
-    kept = [s for s in samples if s <= 10.0 * med]
-    stalled = len(samples) - len(kept)
-    secs = sum(kept)
-    frames = len(kept)
+    secs = sum(samples)
+    frames = len(samples)
 
     # Count useful rays exactly, once, with the instrumented engine on
     # the same pixel ids (single-device; ray counts are sharding-
     # independent by the determinism contract).
     import jax.numpy as jnp
 
-    from pathtracer_tpu.engine.wavefront import trace_sample
+    from pathtracer.engine.wavefront import trace_sample
 
     @jax.jit
     def count_rays():
@@ -183,36 +168,19 @@ def main() -> int:
 
     if host0:
         log("scaling_pod measured", frames=frames,
-            secs=round(secs, 2), rays_per_frame=rays_per_frame,
-            stall_frames_excluded=stalled)
-        here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        if args.cpu_virtual:
-            # Smoke mode measures XLA overhead on shared host cores,
-            # not a machine — never record it as a metrics row.
-            log("scaling_pod smoke mode: metrics row suppressed")
-        else:
-            log_json(
-                os.path.join(here, "bench_metrics.jsonl"),
-                config=f"{cfg.scene} {cfg.width}x{cfg.height} {cfg.spp}spp"
-                       f" depth{cfg.max_depth} backend={cfg.backend} "
-                       f"sharded={n_chips}chips"
-                       + (" grad=train-step" if args.grad else ""),
-                chips=n_chips,
-                hosts=n_hosts,
-                rays_per_s_per_chip=round(per_chip, 1),
-                scaling_eff=round(eff, 4) if eff is not None else None,
-                device=str(jax.devices()[0].device_kind),
-                measured_bands=frames,
-                stall_bands_excluded=stalled,
-            )
+            secs=round(secs, 2), rays_per_frame=rays_per_frame)
         import json
 
+        dev = jax.devices()[0]
         print(json.dumps({
-            "metric": f"rays/s/chip sharded ({cfg.scene} {n_chips} chips "
-                      f"{n_hosts} hosts{' grad' if args.grad else ''})",
-            "value": round(per_chip, 1),
+            "metric": f"rays/s per device sharded ({cfg.scene} {n_chips} "
+                      f"devices {n_hosts} hosts"
+                      f"{' grad' if args.grad else ''})",
+            "value": per_chip,
             "unit": "rays/s",
-            "scaling_eff": round(eff, 4) if eff is not None else None,
+            "scaling_eff": eff,
+            "device": {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": n_chips},
         }))
     return 0
 

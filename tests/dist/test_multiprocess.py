@@ -22,7 +22,7 @@ _WORKER = textwrap.dedent(
     import os, sys
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from pathtracer_tpu.parallel.mesh import initialize_distributed
+    from pathtracer.parallel.mesh import initialize_distributed
 
     pid = int(sys.argv[1])
     initialize_distributed("127.0.0.1:%s", 2, pid)
@@ -30,9 +30,9 @@ _WORKER = textwrap.dedent(
 
     import numpy as np
     import jax.numpy as jnp
-    from pathtracer_tpu.config import RenderConfig
-    from pathtracer_tpu.engine.wavefront import trace_sample
-    from pathtracer_tpu.scene.builder import build_scene
+    from pathtracer.config import RenderConfig
+    from pathtracer.engine.wavefront import trace_sample
+    from pathtracer.scene.builder import build_scene
 
     cfg = RenderConfig(width=16, height=16, spp=1, max_depth=1,
                        scene="cornell_spheres", use_bvh=False)

@@ -1,6 +1,6 @@
 """scaling_pod.py smoke test: the config-5 pod benchmark entry must run
-end-to-end (sharded renders over a virtual mesh, stall-filtered timing,
-exact ray counting, JSON summary) without hardware. Uses a subprocess so
+end-to-end (sharded renders over a virtual mesh, timed frames, exact ray
+counting, JSON summary) without hardware. Uses a subprocess so
 the script's own env/virtual-device setup is exercised as shipped."""
 
 import json
@@ -28,5 +28,4 @@ def test_scaling_pod_smoke():
     assert row["unit"] == "rays/s"
     assert row["value"] > 0
     assert row["scaling_eff"] is not None
-    # Smoke mode must never append a metrics row (log() -> stderr).
-    assert "metrics row suppressed" in out.stderr
+    assert row["device"]["platform"] == "cpu"

@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.engine import wavefront
-from pathtracer_tpu.parallel import mesh as pmesh
-from pathtracer_tpu.scene import builder
+from pathtracer.config import RenderConfig
+from pathtracer.engine import wavefront
+from pathtracer.parallel import mesh as pmesh
+from pathtracer.scene import builder
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +87,8 @@ def test_grads_finite_and_emission_grad_nonzero(scene):
 
 @pytest.fixture(scope="module")
 def mesh_scene():
-    from pathtracer_tpu.accel.build import with_bvh
-    from pathtracer_tpu.accel.clusters import with_clusters
+    from pathtracer.accel.build import with_bvh
+    from pathtracer.accel.clusters import with_clusters
 
     return with_clusters(with_bvh(builder.cornell_mesh()))
 
@@ -120,39 +120,42 @@ def test_sharded_cluster_backend_equals_single(mesh_scene):
 
 
 @pytest.fixture(scope="module")
-def grid_scene():
-    from pathtracer_tpu.accel.grid import with_grid
+def walk_scene():
+    """cornell_mesh as accel/auto.py prepares a large scene: BVH only."""
+    from pathtracer.accel.build import with_bvh
 
-    return with_grid(builder.cornell_mesh(), axis=4)
+    return with_bvh(builder.cornell_mesh())
 
 
-def test_sharded_grid_backend_equals_single(grid_scene):
-    """Config 5 as DEFINED: the per-ray DDA grid backend — the 2M-scene
-    flagship path (BASELINE.json:11) — under shard_map, bit-exact vs
-    single device. The grid path's multi-operand sorts, argsort
-    compaction, scatter-backs, and carry-free Pallas pair kernel all run
-    inside the manual sharding region here (VERDICT r3 missing-1)."""
-    cfg = _cfg(scene="cornell_mesh", backend="grid", width=24, height=24,
-               spp=1)
-    single = np.asarray(wavefront.render(grid_scene, cfg))
+def test_sharded_config5_route_equals_single(walk_scene):
+    """Config 5 as DEFINED (backend="cluster", spp_chunk=1, compaction
+    off), cut to 24x24: a scene without cluster tables routes to the BVH
+    walk, which runs inside the manual sharding region bit-exact vs
+    single device."""
+    from pathtracer.config import PRESETS
+
+    cfg = PRESETS["config5"].replace(scene="cornell_mesh", width=24,
+                                     height=24, max_depth=3)
+    assert wavefront._intersector(walk_scene.geometry, cfg).impl == "bvh"
+    single = np.asarray(wavefront.render(walk_scene, cfg))
     sharded = np.asarray(
-        pmesh.render_sharded(grid_scene, cfg, pmesh.make_mesh())
+        pmesh.render_sharded(walk_scene, cfg, pmesh.make_mesh())
     )
     np.testing.assert_array_equal(single, sharded)
 
 
-def test_sharded_grid_backend_grads(grid_scene):
-    """Backward through the grid backend under shard_map: the pair
-    kernel's custom_vjp detach + psum'ed material grads, sharded ==
+def test_sharded_walk_backend_grads(walk_scene):
+    """Backward through the BVH walk under shard_map: the walk's
+    stop_gradient'ed hits + psum'ed material grads, sharded ==
     single-mesh, finite and nonzero."""
-    cfg = _cfg(scene="cornell_mesh", backend="grid", width=16, height=16,
+    cfg = _cfg(scene="cornell_mesh", use_bvh=True, width=16, height=16,
                spp=1)
     target = np.zeros((cfg.height, cfg.width, 3), np.float32)
     loss8, grads8 = pmesh.loss_and_grad_sharded(
-        grid_scene, cfg, grid_scene.materials, target, pmesh.make_mesh(8)
+        walk_scene, cfg, walk_scene.materials, target, pmesh.make_mesh(8)
     )
     loss1, grads1 = pmesh.loss_and_grad_sharded(
-        grid_scene, cfg, grid_scene.materials, target, pmesh.make_mesh(1)
+        walk_scene, cfg, walk_scene.materials, target, pmesh.make_mesh(1)
     )
     np.testing.assert_allclose(float(loss8), float(loss1), rtol=1e-5)
     for g8, g1 in zip(jax.tree.leaves(grads8), jax.tree.leaves(grads1)):
@@ -162,15 +165,14 @@ def test_sharded_grid_backend_grads(grid_scene):
     assert jnp_abs_sum(grads8.albedo) > 0
 
 
-def test_sharded_grid_deep_sparse_equals_single(grid_scene):
-    """Depth 5 with compaction ON: bounces >= 3 take the engine's
-    sparse_hint (ladder-only grid mode) and every bounce runs the
-    packed-row compaction permutation — both round-4 paths — inside
+def test_sharded_walk_deep_compact_equals_single(walk_scene):
+    """Depth 5 with compaction ON: every bounce runs the packed-row
+    compaction permutation and the BVH walk on the sorted rays inside
     the manual sharding region. Bit-exact vs single device."""
-    cfg = _cfg(scene="cornell_mesh", backend="grid", width=16, height=16,
+    cfg = _cfg(scene="cornell_mesh", use_bvh=True, width=16, height=16,
                spp=1, max_depth=5, compact=True)
-    single = np.asarray(wavefront.render(grid_scene, cfg))
+    single = np.asarray(wavefront.render(walk_scene, cfg))
     sharded = np.asarray(
-        pmesh.render_sharded(grid_scene, cfg, pmesh.make_mesh())
+        pmesh.render_sharded(walk_scene, cfg, pmesh.make_mesh())
     )
     np.testing.assert_array_equal(single, sharded)

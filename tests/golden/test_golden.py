@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from pathtracer_tpu.engine import wavefront
+from pathtracer.engine import wavefront
 from scripts.regen_goldens import GOLDENS, OUT
 
 

@@ -8,11 +8,11 @@ import jax
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.diff import render as dr
-from pathtracer_tpu.oracle import tracer as oracle
-from pathtracer_tpu.scene import builder
-from pathtracer_tpu.scene.model import Materials
+from pathtracer.config import RenderConfig
+from pathtracer.diff import render as dr
+from pathtracer.oracle import tracer as oracle
+from pathtracer.scene import builder
+from pathtracer.scene.model import Materials
 
 
 @pytest.fixture(scope="module")
@@ -91,7 +91,7 @@ def test_geometry_receives_no_grad(scene):
     float_fields = ("tri_v0", "tri_e1", "tri_e2", "tri_n", "sph_c", "sph_r")
 
     def f(*float_leaves):
-        from pathtracer_tpu.engine.wavefront import trace_sample
+        from pathtracer.engine.wavefront import trace_sample
         import jax.numpy as jnp
 
         geom = dataclasses.replace(
@@ -152,7 +152,7 @@ def test_inverse_rendering_converges(scene):
             loss30 = float(loss)
         updates, state = opt.update(grads, state, mats)
         mats = optax.apply_updates(mats, updates)
-    # Early-progress guard (ADVICE.md r1): the extra iterations must not
+    # Early-progress guard: the extra iterations must not
     # mask a convergence-speed regression — by iter 30 the loss has to be
     # well on its way, not just under the final bound at iter 45.
     assert loss30 < 0.30 * loss0, (loss0, loss30)

@@ -1,16 +1,16 @@
 """Engine-vs-oracle allclose tests (SURVEY.md §4.2) — the core acceptance
-criterion: at fixed seeds, the jit-compiled TPU wavefront engine must
+criterion: at fixed seeds, the jit-compiled wavefront engine must
 reproduce the numpy oracle pixel-for-pixel (fp32 tolerances)."""
 
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.engine import wavefront
-from pathtracer_tpu.engine.camera import camera_rays as jnp_camera_rays
-from pathtracer_tpu.engine.shading import cosine_hemisphere as jnp_cosine
-from pathtracer_tpu.oracle import tracer as oracle
-from pathtracer_tpu.scene import builder
+from pathtracer.config import RenderConfig
+from pathtracer.engine import wavefront
+from pathtracer.engine.camera import camera_rays as jnp_camera_rays
+from pathtracer.engine.shading import cosine_hemisphere as jnp_cosine
+from pathtracer.oracle import tracer as oracle
+from pathtracer.scene import builder
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +30,7 @@ def _cfg(**kw):
 def test_camera_rays_match(scene):
     n = 64 * 64
     jitter = np.asarray(
-        __import__("pathtracer_tpu.sampling.rng", fromlist=["rng"]).pixel_jitter(
+        __import__("pathtracer.sampling.rng", fromlist=["rng"]).pixel_jitter(
             0, 0, np.arange(n, dtype=np.uint32)
         )
     )
@@ -98,7 +98,7 @@ def test_resume_matches_fresh(scene):
 def test_config2_mesh_bvh_allclose():
     """Driver config 2 (BASELINE.json:8): mesh Cornell + flat BVH traversal,
     direct lighting — engine(BVH) == oracle(brute force)."""
-    from pathtracer_tpu.accel.build import with_bvh
+    from pathtracer.accel.build import with_bvh
 
     scene = with_bvh(builder.cornell_mesh())
     cfg = RenderConfig(
@@ -113,7 +113,7 @@ def test_config2_mesh_bvh_allclose():
 def test_config3_gi_allclose():
     """Driver config 3 (BASELINE.json:9): 4-bounce GI + NEE + RR — scaled
     down to 24x24/2spp for CI; the estimator is identical at any size."""
-    from pathtracer_tpu.accel.build import with_bvh
+    from pathtracer.accel.build import with_bvh
 
     scene = with_bvh(builder.cornell_mesh())
     cfg = RenderConfig(
@@ -149,7 +149,7 @@ def test_compaction_exact_equality(scene):
 
 
 def test_compaction_with_bvh_mesh():
-    from pathtracer_tpu.accel.build import with_bvh
+    from pathtracer.accel.build import with_bvh
 
     mesh = with_bvh(builder.cornell_mesh(mesh_tris=builder.procedural_bunny(2)))
     cfg = RenderConfig(

@@ -15,10 +15,10 @@ to the same identity (statistical tolerance).
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.engine import wavefront
-from pathtracer_tpu.oracle import tracer as oracle
-from pathtracer_tpu.scene import builder, model
+from pathtracer.config import RenderConfig
+from pathtracer.engine import wavefront
+from pathtracer.oracle import tracer as oracle
+from pathtracer.scene import builder, model
 
 
 def _furnace_scene(albedo: float):

@@ -1,15 +1,15 @@
 """MIS (power heuristic NEE<->BSDF) tests — oracle/engine lockstep,
 unbiasedness, and the variance reduction that justifies it
-(VERDICT.md round-1 item 7; SURVEY.md §3.1 "+MIS/NEE bookkeeping").
+(SURVEY.md §3.1 "+MIS/NEE bookkeeping").
 """
 
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.engine import wavefront
-from pathtracer_tpu.oracle import tracer as oracle
-from pathtracer_tpu.scene import builder
+from pathtracer.config import RenderConfig
+from pathtracer.engine import wavefront
+from pathtracer.oracle import tracer as oracle
+from pathtracer.scene import builder
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +72,7 @@ def test_mis_noop_without_lights():
         scene.materials,
         emission=np.zeros_like(np.asarray(scene.materials.emission)),
     )
-    from pathtracer_tpu.scene.model import make_lights
+    from pathtracer.scene.model import make_lights
 
     scene = dataclasses.replace(
         scene, materials=mats,

@@ -8,10 +8,10 @@ estimator invariants, and the unit tests of its intersection math.
 import numpy as np
 import pytest
 
-from pathtracer_tpu.config import RenderConfig
-from pathtracer_tpu.oracle import tracer
-from pathtracer_tpu.scene import builder
-from pathtracer_tpu.scene.model import Materials, Scene, make_lights
+from pathtracer.config import RenderConfig
+from pathtracer.oracle import tracer
+from pathtracer.scene import builder
+from pathtracer.scene.model import Materials, Scene, make_lights
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_direct_light_closed_form():
     expected = albedo / np.pi * Le * integral
 
     # Monte Carlo estimate via the oracle's NEE machinery at the same point.
-    from pathtracer_tpu import constants as C
+    from pathtracer import constants as C
 
     N = 20000
     rng = np.random.default_rng(3)

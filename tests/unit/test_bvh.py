@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from pathtracer_tpu import constants as C
-from pathtracer_tpu.accel.build import build_bvh, check_invariants, with_bvh
-from pathtracer_tpu.accel.traverse import closest_hit
-from pathtracer_tpu.engine import intersect as isect
-from pathtracer_tpu.scene import builder
+from pathtracer import constants as C
+from pathtracer.accel.build import build_bvh, check_invariants, with_bvh
+from pathtracer.accel.traverse import closest_hit
+from pathtracer.engine import intersect as isect
+from pathtracer.scene import builder
 
 
 @pytest.fixture(scope="module")
@@ -64,13 +64,29 @@ def test_traversal_equals_brute_random_rays(mesh_scene):
     np.testing.assert_allclose(np.asarray(n_t), np.asarray(n_b), atol=1e-5)
 
 
-def test_traversal_chunked_equals_unchunked(mesh_scene):
+@pytest.mark.parametrize("n", [1, 7, 1000])
+def test_traversal_any_batch_size(mesh_scene, n):
+    """The walk is one batch-wide loop: any batch size, same shapes and
+    hits as brute force."""
     g = mesh_scene.geometry
-    o, d = _random_rays(1000, seed=1)
-    a = closest_hit(g, o, d, chunk=256)
-    b = closest_hit(g, o, d, chunk=100000)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y), atol=0)
+    o, d = _random_rays(n, seed=n)
+    t_t, n_t, m_t = closest_hit(g, o, d)
+    assert t_t.shape == (n,) and n_t.shape == (n, 3) and m_t.shape == (n,)
+    t_b, _, m_b = isect.brute(g, o, d)
+    np.testing.assert_allclose(np.asarray(t_t), np.asarray(t_b), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(m_t), np.asarray(m_b))
+
+
+@pytest.mark.parametrize("n_target", [1280, 5120])
+def test_traversal_equals_brute_instanced_mesh(n_target):
+    """big_mesh's instanced layout (the large-scene route's scene), cut
+    to a few instances: the walk finds brute force's hits."""
+    g = with_bvh(builder.big_mesh(n_target=n_target)).geometry
+    o, d = _random_rays(512, seed=n_target)
+    t_b, _, m_b = isect.brute(g, o, d)
+    t_t, _, m_t = closest_hit(g, o, d)
+    np.testing.assert_allclose(np.asarray(t_t), np.asarray(t_b), atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(m_t), np.asarray(m_b))
 
 
 def test_traversal_with_spheres():
@@ -107,7 +123,7 @@ def test_light_indices_remapped(mesh_scene):
 
 
 def test_obj_loader_roundtrip(tmp_path):
-    from pathtracer_tpu.scene.obj import load_obj, normalize_to_unit
+    from pathtracer.scene.obj import load_obj, normalize_to_unit
 
     p = tmp_path / "quad.obj"
     p.write_text(
@@ -125,8 +141,8 @@ def test_obj_loader_roundtrip(tmp_path):
 
 def test_native_builder_matches_numpy_semantics():
     """C++ binned-SAH builder: same invariants, same closest hits."""
-    from pathtracer_tpu.accel import native
-    from pathtracer_tpu.scene import builder as B
+    from pathtracer.accel import native
+    from pathtracer.scene import builder as B
 
     if not native.available():
         import pytest
@@ -157,8 +173,8 @@ def test_native_builder_big_input_fast():
     2M; this keeps CI cheap while catching gross regressions)."""
     import time
 
-    from pathtracer_tpu.accel import native
-    from pathtracer_tpu.scene import builder as B
+    from pathtracer.accel import native
+    from pathtracer.scene import builder as B
 
     if not native.available():
         import pytest
@@ -183,7 +199,7 @@ def test_bunny_asset_roundtrip_exact():
 
     import numpy as np
 
-    from pathtracer_tpu.scene.builder import _bunny_asset, procedural_bunny
+    from pathtracer.scene.builder import _bunny_asset, procedural_bunny
 
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))

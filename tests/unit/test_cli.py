@@ -12,7 +12,7 @@ ENV = dict(os.environ, JAX_PLATFORMS="cpu")
 
 def _run(args):
     return subprocess.run(
-        [sys.executable, "-m", "pathtracer_tpu.cli", *args],
+        [sys.executable, "-m", "pathtracer.cli", *args],
         cwd=ROOT, env=ENV, capture_output=True, text=True, timeout=420,
     )
 
@@ -67,10 +67,10 @@ def test_render_progressive_preview(tmp_path):
 
 
 def test_configs_dir_matches_presets():
-    """configs/*.json must equal config.py:PRESETS exactly (r2 verdict
-    weak 1: drifted on-disk presets silently measured the slow path).
+    """configs/*.json must equal config.py:PRESETS exactly (drifted
+    on-disk presets would silently measure another path).
     Regenerate with scripts/regen_configs.py when PRESETS changes."""
-    from pathtracer_tpu.config import PRESETS, RenderConfig
+    from pathtracer.config import PRESETS, RenderConfig
 
     cfg_dir = os.path.join(ROOT, "configs")
     on_disk = {

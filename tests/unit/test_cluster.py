@@ -1,7 +1,7 @@
 """Dense cluster intersector tests (accel/clusters.py +
 ops/intersect_cluster.py), all in Pallas interpret mode on CPU.
 
-The cluster kernel is the round-2 default hot path; its contract is
+The cluster kernel is the dense route's hit query; its contract is
 equality with engine/intersect.py:brute up to f32 tolerance (same
 predicate in multiply form — see module docstrings). Tie-broken *indices*
 may differ, so assertions pin t/material/normal agreement.
@@ -12,19 +12,19 @@ import pytest
 
 import jax.numpy as jnp
 
-from pathtracer_tpu import constants as C
-from pathtracer_tpu.accel.clusters import (
+from pathtracer import constants as C
+from pathtracer.accel.clusters import (
     CLUSTER_TRIS,
     build_clusters,
     check_cluster_invariants,
     with_clusters,
 )
-from pathtracer_tpu.engine import intersect as isect
-from pathtracer_tpu.ops.intersect_cluster import (
+from pathtracer.engine import intersect as isect
+from pathtracer.ops.intersect_cluster import (
     closest_hit_cluster,
     cull_mask,
 )
-from pathtracer_tpu.scene import builder
+from pathtracer.scene import builder
 
 
 @pytest.fixture(scope="module")
@@ -67,13 +67,13 @@ def test_cluster_matches_brute(mesh_scene):
     hit_b = t_b < C.T_FAR * 0.5
     hit_c = t_c < C.T_FAR * 0.5
     np.testing.assert_array_equal(hit_b, hit_c)
-    # The kernel's bf16 hi/lo split matmul carries ~2^-18 relative input
-    # error; grazing hits amplify it, so the tail tolerance is looser
-    # than the bulk (absolute scene scale is ~1, RAY_OFFSET is 1e-3).
+    # f32 multiply-add dots in another association than brute's cross
+    # products: grazing hits amplify the rounding, so the tail tolerance
+    # is looser than the bulk (scene scale is ~1, RAY_OFFSET is 1e-3).
     err = np.abs(t_c[hit_b] - t_b[hit_b])
-    assert np.quantile(err, 0.99) < 2e-5, np.quantile(err, 0.99)
-    np.testing.assert_allclose(t_c[hit_b], t_b[hit_b], rtol=4e-3,
-                               atol=2e-4)
+    assert np.quantile(err, 0.99) < 2e-6, np.quantile(err, 0.99)
+    np.testing.assert_allclose(t_c[hit_b], t_b[hit_b], rtol=1e-4,
+                               atol=1e-5)
     assert (np.asarray(m_b) == np.asarray(m_c)).mean() > 0.999
     close_n = np.abs(np.asarray(n_b) - np.asarray(n_c)).max(-1) < 1e-4
     assert close_n[hit_b].mean() > 0.999
@@ -130,9 +130,9 @@ def test_cull_mask_keeps_actual_hits(mesh_scene):
 
 def test_cluster_in_engine_matches_jnp_backend(mesh_scene):
     """Full engine render with backend='cluster' == backend='jnp'."""
-    from pathtracer_tpu.accel.build import with_bvh
-    from pathtracer_tpu.config import RenderConfig
-    from pathtracer_tpu.engine import wavefront
+    from pathtracer.accel.build import with_bvh
+    from pathtracer.config import RenderConfig
+    from pathtracer.engine import wavefront
 
     scene = with_clusters(with_bvh(builder.cornell_mesh()))
     cfg = RenderConfig(width=64, height=64, spp=1, max_depth=2,
@@ -159,9 +159,7 @@ def test_spheres_merge(mesh_scene):
 def test_t_max_shadow_contract(mesh_scene):
     """Per-ray t_max: hits strictly nearer are always found; hits beyond
     may read as misses; visibility decisions are unchanged (the shadow
-    query contract, PROFILE.md action 1)."""
-    from pathtracer_tpu.ops.intersect_stream import closest_hit_stream
-
+    query contract)."""
     g = mesh_scene.geometry
     o, d = _random_rays(1024, seed=13)
     t_ref, _, _ = closest_hit_cluster(g, o, d, interpret=True)
@@ -176,16 +174,14 @@ def test_t_max_shadow_contract(mesh_scene):
     below = np.where(hit, t_ref * 0.5, 1e-3).astype(np.float32)
     t_b, _, _ = closest_hit_cluster(g, o, d, interpret=True, t_max=below)
     assert (np.asarray(t_b) >= C.T_FAR * 0.5).all()
-    # Streaming kernel honors the same contract.
-    t_sa, _, _ = closest_hit_stream(g, o, d, interpret=True, t_max=above)
-    np.testing.assert_allclose(np.asarray(t_sa)[hit], t_ref[hit],
-                               rtol=1e-6, atol=1e-6)
-    t_sb, _, _ = closest_hit_stream(g, o, d, interpret=True, t_max=below)
-    assert (np.asarray(t_sb) >= C.T_FAR * 0.5).all()
+    # The bounded query agrees with brute force on every found hit.
+    t_br = np.asarray(isect.brute(g, o, d)[0])
+    np.testing.assert_allclose(np.asarray(t_a)[hit], t_br[hit],
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_tiled_pixel_ids_bijection():
-    from pathtracer_tpu.engine.camera import tiled_pixel_ids
+    from pathtracer.engine.camera import tiled_pixel_ids
 
     ids = np.asarray(tiled_pixel_ids(jnp.uint32(0), 1024 * 64, 1024))
     assert sorted(ids.tolist()) == list(range(1024 * 64))
@@ -194,26 +190,40 @@ def test_tiled_pixel_ids_bijection():
     np.testing.assert_array_equal(ids2, 5 + np.arange(100))
 
 
-def test_bf16_round_bits_matches_ml_dtypes():
-    """The numpy fallback of stack_feat's RN-to-bf16 must be
-    bit-identical to ml_dtypes (and hence to the XLA path)."""
-    import ml_dtypes
+def test_feature_table_dots_are_moller_trumbore():
+    """The f32 feature table's dots with ray features give (det, u*det,
+    v*det, t*det) of Möller-Trumbore for every triangle (f64 check of
+    the algebra the kernel relies on, rows it skips included)."""
+    from pathtracer.accel.clusters import FEAT_ROWS
+    from pathtracer.ops.intersect_cluster import _ray_features
 
-    from pathtracer_tpu.accel.clusters import _bf16_round_bits
-
-    rng = np.random.default_rng(0)
-    x = np.concatenate([
-        (rng.normal(size=200_000)
-         * 10.0 ** rng.uniform(-20, 20, 200_000)),
-        [0.0, -0.0, 1e-38, -1e-38, 3.4e38, -3.4e38],
-    ]).astype(np.float32)
-    ref = x.astype(ml_dtypes.bfloat16).view(np.uint16)
-    got = (_bf16_round_bits(x).view(np.uint32) >> 16).astype(np.uint16)
-    np.testing.assert_array_equal(ref, got)
-    # And the lo residual path.
-    hi_f = _bf16_round_bits(x).view(np.float32)
-    lo = x - hi_f
-    ref_lo = lo.astype(ml_dtypes.bfloat16).view(np.uint16)
-    got_lo = (_bf16_round_bits(lo).view(np.uint32) >> 16).astype(
-        np.uint16)
-    np.testing.assert_array_equal(ref_lo, got_lo)
+    rng = np.random.default_rng(1)
+    n = 200
+    v0 = rng.normal(size=(n, 3)).astype(np.float32)
+    e1 = rng.normal(size=(n, 3)).astype(np.float32)
+    e2 = rng.normal(size=(n, 3)).astype(np.float32)
+    cs = build_clusters(v0, e1, e2)
+    assert cs.feat.dtype == np.float32
+    assert cs.feat.shape == (FEAT_ROWS, len(cs.lo) * 4 * CLUSTER_TRIS)
+    o = rng.normal(size=(1, 3)).astype(np.float32)
+    d = rng.normal(size=(1, 3)).astype(np.float32)
+    f = np.asarray(_ray_features(jnp.asarray(o), jnp.asarray(d)),
+                   np.float64)[:, 0]
+    f[10] = 0.0  # the t-bound row pairs with all-zero table rows
+    q = (f[:, None] * cs.feat.astype(np.float64)).sum(0)
+    q = q.reshape(len(cs.lo), 4, CLUSTER_TRIS)
+    slot = cs.tri_map.reshape(len(cs.lo), CLUSTER_TRIS)
+    for c in range(len(cs.lo)):
+        for s in range(CLUSTER_TRIS):
+            t = slot[c, s]
+            if t < 0:
+                assert not q[c, :, s].any(), "padding slots are all-zero"
+                continue
+            a, b, v = (x.astype(np.float64) for x in (e1[t], e2[t], v0[t]))
+            p = np.cross(d[0], b)
+            det = a @ p
+            tvec = o[0] - v
+            qv = np.cross(tvec, a)
+            want = [det, tvec @ p, d[0] @ qv, b @ qv]
+            np.testing.assert_allclose(q[c, :, s], want, rtol=1e-5,
+                                       atol=1e-5)

@@ -7,13 +7,13 @@ against the oracle, so correctness chains back to these.
 
 import numpy as np
 
-from pathtracer_tpu import constants as C
-from pathtracer_tpu.oracle.tracer import (
+from pathtracer import constants as C
+from pathtracer.oracle.tracer import (
     _intersect_spheres,
     _intersect_tris,
     intersect_closest,
 )
-from pathtracer_tpu.scene.model import make_geometry
+from pathtracer.scene.model import make_geometry
 
 
 def _tri(v0, v1, v2):

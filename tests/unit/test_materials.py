@@ -5,7 +5,7 @@ and the oracle's numpy mirror of the same math."""
 
 import numpy as np
 
-from pathtracer_tpu.engine import shading
+from pathtracer.engine import shading
 
 
 def _unit(v):
@@ -84,9 +84,9 @@ def test_schlick_limits():
 def test_mirror_image_of_light_present():
     """spec_chain rule: a mirror sphere must show the light's reflection
     (a diffuse->specular->light path), which plain NEE cannot produce."""
-    from pathtracer_tpu.config import RenderConfig
-    from pathtracer_tpu.engine import wavefront
-    from pathtracer_tpu.scene import builder
+    from pathtracer.config import RenderConfig
+    from pathtracer.engine import wavefront
+    from pathtracer.scene import builder
 
     scene = builder.cornell_specular()
     cfg = RenderConfig(
@@ -102,10 +102,9 @@ def test_mirror_image_of_light_present():
 
 
 def test_take_small_rows_matches_gather_and_grads():
-    """take_small_rows (the scatter-free small-table lookup, r5) must be
+    """take_small_rows (the scatter-free small-table lookup) must be
     forward-bit-identical to rows[idx] and produce the same gradients —
-    its transpose is masked dense reductions instead of the scatter-add
-    that serialized the grad band (PROFILE.md r5)."""
+    its transpose is masked dense reductions instead of a scatter-add."""
     import jax
     import jax.numpy as jnp
     import numpy as np

@@ -1,11 +1,11 @@
 """Threefry sampler tests: determinism, stream decorrelation, distribution
 (SURVEY.md §4.1). Bit-exactness across backends is what makes the CPU
-oracle comparable to TPU renders; determinism and pixel-id keying here
+oracle comparable to GPU renders; determinism and pixel-id keying here
 underwrite that and the sharding contract."""
 
 import numpy as np
 
-from pathtracer_tpu.sampling import rng
+from pathtracer.sampling import rng
 
 
 def _ids(n, start=0):
@@ -53,7 +53,7 @@ def test_uniform_distribution():
 
 
 def test_draw_layout_stable():
-    # The slot layout is part of the oracle/TPU contract; freezing it here
+    # The slot layout is part of the oracle/engine contract; freezing it here
     # turns silent renumbering into a test failure.
     assert (
         rng.LIGHT_SEL,

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from pathtracer_tpu.scene import builder
-from pathtracer_tpu.scene.model import make_lights, triangle_areas
+from pathtracer.scene import builder
+from pathtracer.scene.model import make_lights, triangle_areas
 
 
 def test_geometry_normals_unit():
@@ -69,10 +69,10 @@ def test_procedural_bunny_deterministic():
 
 
 def test_emissive_sphere_lights():
-    """Emissive SPHERES are NEE lights (round 5 — previously they lost
-    energy silently, VERDICT r4 weak 3): make_lights must put them in
+    """Emissive SPHERES are NEE lights (else they lose energy silently):
+    make_lights must put them in
     the table with area 4*pi*r^2, triangles first in the cdf."""
-    from pathtracer_tpu.scene.model import (
+    from pathtracer.scene.model import (
         Materials,
         make_geometry,
         make_lights,

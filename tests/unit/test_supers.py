@@ -1,12 +1,14 @@
 """Super-cluster per-ray line cull tests (accel/clusters.py:build_supers
 + ops/intersect_cluster.py:ray_super_mask), Pallas interpret mode on CPU.
 
-The mask is the round-3 fix for the big_mesh candidate collapse
-(PROFILE.md "round-3 analysis"): block-interval culls keep the block's
-CONE; the per-ray super slab test keeps only the union of its rays'
-LINES at ~32-cluster granularity. Contract: purely subtractive and
-SOUND — adding it must never change any closest-hit result, for any
-super granularity, with or without per-ray t_max bounds.
+The mask is the large-scene fix for block-level candidate collapse:
+block-interval culls keep the block's CONE; the per-ray super slab test
+keeps only the union of its rays' LINES at ~32-cluster granularity.
+Contract: purely subtractive and SOUND — adding it must never change any
+closest-hit result, for any super granularity, with or without per-ray
+t_max bounds. The soup scenes here are small enough for the exact
+per-cluster line mask, so the tests lower RAY_CULL_MAX_C to make the
+dense kernel take the super mask instead.
 """
 
 import dataclasses
@@ -16,21 +18,21 @@ import pytest
 
 import jax.numpy as jnp
 
-from pathtracer_tpu import constants as C
-from pathtracer_tpu.accel.clusters import (
+from pathtracer import constants as C
+from pathtracer.accel.clusters import (
     build_clusters,
     build_supers,
     with_clusters,
 )
-from pathtracer_tpu.engine import intersect as isect
-from pathtracer_tpu.ops.intersect_cluster import (
+from pathtracer.engine import intersect as isect
+from pathtracer.ops import intersect_cluster
+from pathtracer.ops.intersect_cluster import (
     closest_hit_cluster,
     ray_super_mask,
 )
-from pathtracer_tpu.ops.intersect_stream import closest_hit_stream
-from pathtracer_tpu.scene import builder
-from pathtracer_tpu.scene.model import make_geometry, make_lights, Scene
-from pathtracer_tpu.scene.model import Materials
+from pathtracer.scene import builder
+from pathtracer.scene.model import make_geometry, make_lights, Scene
+from pathtracer.scene.model import Materials
 
 
 def _soup_scene(n_tris=900, seed=3, spread=4.0, tri_size=0.25):
@@ -75,8 +77,14 @@ def test_build_supers_invariants():
         assert (su_hi[s] > cs.hi[m].max(0) - 1e-12).all()
 
 
+@pytest.fixture
+def super_cull(monkeypatch):
+    """Route the dense kernel's per-ray cull through the super mask."""
+    monkeypatch.setattr(intersect_cluster, "RAY_CULL_MAX_C", 0)
+
+
 @pytest.mark.parametrize("group", [2, 4, 16])
-def test_super_mask_never_changes_results(group):
+def test_super_mask_never_changes_results(group, super_cull):
     """closest-hit with the super mask (any granularity) == without."""
     scene = with_clusters(_soup_scene(), max_tris=16, super_group=group)
     g = scene.geometry
@@ -94,7 +102,7 @@ def test_super_mask_never_changes_results(group):
     np.testing.assert_array_equal(np.asarray(n_a), np.asarray(n_b))
 
 
-def test_super_mask_with_shadow_tmax():
+def test_super_mask_with_shadow_tmax(super_cull):
     """Per-ray t_max interacts with the per-ray super crossing test:
     hits strictly nearer than t_max must all survive."""
     scene = with_clusters(_soup_scene(seed=8), max_tris=16, super_group=4)
@@ -108,29 +116,31 @@ def test_super_mask_with_shadow_tmax():
         t_ref * (1.0 + rng.random(len(o))),  # bound beyond the hit
         np.float32(C.T_FAR),
     ).astype(np.float32)
-    t_s, _, _ = closest_hit_stream(g, o, d, interpret=True, t_max=t_max)
+    t_s, _, _ = closest_hit_cluster(g, o, d, interpret=True, t_max=t_max)
     t_s = np.asarray(t_s)
     hit = t_ref < C.T_FAR * 0.5
     near = hit & (t_ref < t_max * 0.999)
-    np.testing.assert_allclose(t_s[near], t_ref[near], rtol=4e-3,
-                               atol=2e-4)
+    np.testing.assert_allclose(t_s[near], t_ref[near], rtol=1e-4,
+                               atol=1e-5)
 
 
-def test_stream_matches_brute_many_supers():
-    """End-to-end: streaming path on a many-super scene (small round
-    window too, forcing multi-round resolution under the mask)."""
+def test_stream_matches_brute_many_supers(super_cull):
+    """End-to-end: the dense kernel under the super mask on a many-super
+    scene equals brute force."""
     scene = with_clusters(_soup_scene(n_tris=1200, seed=12), max_tris=16,
                           super_group=4)
     g = scene.geometry
     o, d = _random_rays(1024, seed=2)
     t_b, _, m_b = isect.brute(g, o, d)
-    t_s, _, m_s = closest_hit_stream(g, o, d, interpret=True, max_cand=8)
+    t_s, _, m_s = closest_hit_cluster(g, o, d, interpret=True)
     t_b, t_s = np.asarray(t_b), np.asarray(t_s)
     hit_b = t_b < C.T_FAR * 0.5
     hit_s = t_s < C.T_FAR * 0.5
     np.testing.assert_array_equal(hit_b, hit_s)
-    np.testing.assert_allclose(t_s[hit_b], t_b[hit_b], rtol=4e-3,
-                               atol=2e-4)
+    np.testing.assert_allclose(t_s[hit_b], t_b[hit_b], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(m_s)[hit_b],
+                                  np.asarray(m_b)[hit_b])
 
 
 def test_ray_super_mask_is_union_of_lines():
